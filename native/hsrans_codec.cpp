@@ -1,4 +1,4 @@
-// hsrans_tpu native host codecs.
+// hsrans native host codecs.
 //
 // The single-stream wire formats (raw rANS32xN, block_rANS32xN) are
 // inherently serial: one interleaved word stream, one set of carried
@@ -11,7 +11,7 @@
 // hand-unrolls AVX variants per width), use reciprocal-multiply division
 // (the reference's encoders divide), and share one section state machine
 // across raw/block/mt.  Wire parity is enforced against the numpy authority
-// (hsrans_tpu/ops/*.py) and reference golden vectors by tests/.
+// (hsrans/ops/*.py) and reference golden vectors by tests/.
 //
 // Formats (semantics mirrored from ops/reference.py, ops/block.py,
 // ops/mt.py; original layouts per rANS32x32_16w.cpp:130-158,

@@ -1,13 +1,13 @@
-// hsrans_tpu native host runtime.
+// hsrans native host runtime.
 //
-// TPU-native replacement for the reference's host-side native layer: the
-// compute path lives in JAX/Pallas on the TPU, but the framework keeps a
-// C++ runtime for the host work that surrounds it — histogram observation,
+// The framework's replacement for the reference's host-side native layer:
+// the device paths live in JAX/Pallas, and this C++ runtime does the host
+// work that surrounds them — histogram observation,
 // exact float32 histogram normalization (hist.cpp semantics), the greedy
 // block-segmentation cost model, wire-format mux/demux and a thread pool
 // for overlapping host prep with device execution.
 //
-// Exposed as a plain C ABI consumed via ctypes (hsrans_tpu/runtime/native.py).
+// Exposed as a plain C ABI consumed via ctypes (hsrans/runtime/native.py).
 // Build: make -C native   ->  native/libhsrans_native.so
 
 #include <atomic>
@@ -131,10 +131,9 @@ void hsr_normalize_hist(const uint32_t *hist, uint64_t data_bytes, uint32_t bits
 // ---------------------------------------------------------------------------
 // Batched uniform-block histograms (threaded) --------------------------------
 //
-// observe + normalize for B consecutive uniform blocks in one call — the
-// host prep for the device block encoders (kernels/mt64_encode.py,
-// kernels/tpx_encode.py).  The final (remainder) block is included; an
-// empty tail block gets the 1-symbol histogram.
+// observe + normalize for B consecutive uniform blocks in one call — host
+// prep for batched block encoders.  The final (remainder) block is
+// included; an empty tail block gets the 1-symbol histogram.
 
 struct HistBlocksJob {
   const uint8_t *data;
@@ -194,7 +193,7 @@ void hsr_hist_blocks(const uint8_t *data, uint64_t length, uint64_t block_size,
 // (/root/reference/src/block_rANS32x64_16w_encode.cpp:137-349) — including
 // its single-symbol RLE detection and _CanExtendHist log2 cost model — but
 // as a *planner only*: it emits (block_start, block_size, is_single, sym,
-// freq[256]) rows.  The actual entropy coding runs on the TPU.
+// freq[256]) rows; the entropy coding itself runs elsewhere.
 //
 // mode: 0 = block codec constants, 1 = mt codec constants (different
 // HistReplaceMul tables and a header-amortization term, mt_...enc.cpp:21-26,102).

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import make_hist
-from hsrans_tpu.ops.blk32 import blk32_capacity, blk32_decode, blk32_encode
+from hsrans.models.histogram import make_hist
+from hsrans.ops.blk32 import blk32_capacity, blk32_decode, blk32_encode
 
 from .conftest import fnv1a, read_meta
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hsrans_tpu.ops.block import block_capacity, block_decode, block_encode
-from hsrans_tpu.ops.mt import block_index, mt_capacity, mt_decode, mt_encode
-from hsrans_tpu.ops.planner import plan_blocks, plan_blocks_py
-from hsrans_tpu.runtime import native
+from hsrans.ops.block import block_capacity, block_decode, block_encode
+from hsrans.ops.mt import block_index, mt_capacity, mt_decode, mt_encode
+from hsrans.ops.planner import plan_blocks, plan_blocks_py
+from hsrans.runtime import native
 
 from .conftest import fnv1a, read_meta
 
@@ -104,12 +104,12 @@ def test_n16_falls_back_to_numpy_tier(fam):
     rng = np.random.default_rng(71)
     data = text_like(rng, 60_000)
     if fam == "mt":
-        from hsrans_tpu.ops.mt import mt_decode, mt_encode
+        from hsrans.ops.mt import mt_decode, mt_encode
 
         blob = mt_encode(data, 12, 16)
         assert mt_decode(blob, 12, 16) == data.tobytes()
     else:
-        from hsrans_tpu.ops.block import block_decode, block_encode
+        from hsrans.ops.block import block_decode, block_encode
 
         blob = block_encode(data, 12, 16)
         assert block_decode(blob, 12, 16) == data.tobytes()

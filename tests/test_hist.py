@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import complete_hist, make_hist, normalize_hist, observe_hist
-from hsrans_tpu.models.tables import make_cumul_inv, make_dec3, make_dec_pack
-from hsrans_tpu.runtime import native
+from hsrans.models.histogram import complete_hist, make_hist, normalize_hist, observe_hist
+from hsrans.models.tables import make_cumul_inv, make_dec3, make_dec_pack
+from hsrans.runtime import native
 
 from .conftest import GOLDEN
 

@@ -6,16 +6,16 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from hsrans_tpu.models.histogram import make_hist, normalize_hist, observe_hist
-from hsrans_tpu.models.jax_hist import (
+from hsrans.models.histogram import make_hist, normalize_hist, observe_hist
+from hsrans.models.jax_hist import (
     make_dec3_device,
     make_hist_device,
     make_rank_tables_device,
     normalize_device,
     observe_device,
 )
-from hsrans_tpu.models.tables import make_dec3
-from hsrans_tpu.ops.tpx import make_rank_tables
+from hsrans.models.tables import make_dec3
+from hsrans.ops.tpx import make_rank_tables
 
 
 def _cases(rng):

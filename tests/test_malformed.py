@@ -8,12 +8,12 @@ and bit flips in headers must not escape as exceptions.
 import numpy as np
 import pytest
 
-from hsrans_tpu.ops.blk32 import blk32_decode
-from hsrans_tpu.ops.block import block_decode, block_encode
-from hsrans_tpu.ops.mt import mt_decode, mt_encode
-from hsrans_tpu.ops.reference import raw_decode_16w, raw_encode_16w
-from hsrans_tpu.models.histogram import make_hist
-from hsrans_tpu.ops.tpx import tpx_decode, tpx_encode
+from hsrans.ops.blk32 import blk32_decode
+from hsrans.ops.block import block_decode, block_encode
+from hsrans.ops.mt import mt_decode, mt_encode
+from hsrans.ops.reference import raw_decode_16w, raw_encode_16w
+from hsrans.models.histogram import make_hist
+from hsrans.ops.tpx import tpx_decode, tpx_encode
 
 
 def _data():
@@ -100,8 +100,8 @@ def test_mt_payload_bitflips_safe():
     """Flips in mt block headers (size, writeHeadOffset, states, freq) and
     stream words: host oracle, native decoder, and the Pallas path's host
     indexing must all fail closed."""
-    from hsrans_tpu.ops.mt import block_index, mt_decode_py
-    from hsrans_tpu.runtime import native
+    from hsrans.ops.mt import block_index, mt_decode_py
+    from hsrans.runtime import native
 
     rng = np.random.default_rng(32)
     blob = mt_encode(_data(), 12, 64)
@@ -115,25 +115,25 @@ def test_mt_payload_bitflips_safe():
 
 
 def test_mt_kernel_payload_bitflips_safe():
-    """The mt64 kernel host path (block_index + bucket build) on corrupted
-    blobs: returns None or bytes, never raises (interpret mode, targeted
-    header fields: writeHeadOffset and states of the first coded block)."""
-    from hsrans_tpu.kernels.mt64_decode import mt64_decode_tpu
+    """The mt device decode (host indexing + the kernel, interpret mode) on
+    corrupted blobs: returns None or bytes, never raises (targeted header
+    fields: writeHeadOffset and states of the first coded block)."""
+    from hsrans.parallel.sharded import mt_decode_device
 
     blob = mt_encode(_data(), 12, 64)
     for off in (16 + 8, 16 + 12, 16 + 16, 16 + 20, 16 + 16 + 256):
         for val in (0x00, 0xFF, 0x80):
             b = bytearray(blob)
             b[off] = val
-            out = mt64_decode_tpu(bytes(b), 12, interpret=True)
+            out = mt_decode_device(bytes(b), 12, 64)
             assert out is None or isinstance(out, bytes)
 
 
 def test_block_payload_bitflips_safe():
     rng = np.random.default_rng(33)
     blob = block_encode(_data(), 12, 64)
-    from hsrans_tpu.ops.block import block_decode_py
-    from hsrans_tpu.runtime import native
+    from hsrans.ops.block import block_decode_py
+    from hsrans.runtime import native
 
     for b in _payload_flips(blob, rng, n_flips=60):
         out = block_decode_py(b, 12, 64)
@@ -146,8 +146,8 @@ def test_block_payload_bitflips_safe():
 def test_blk32_payload_bitflips_safe():
     rng = np.random.default_rng(34)
     data = _data()
-    from hsrans_tpu.ops.blk32 import blk32_encode
-    from hsrans_tpu.runtime import native
+    from hsrans.ops.blk32 import blk32_encode
+    from hsrans.runtime import native
 
     blob = blk32_encode(data, make_hist(data, 12), 16)
     for b in _payload_flips(blob, rng, n_flips=60):
@@ -162,7 +162,7 @@ def test_tpx_v3_truncations_and_bitflips_safe():
     """The adaptive (per-mega geometry) wire gets the same error model:
     truncations and arbitrary byte corruption never raise or OOB — the
     per-mega rows/steps fields are plausibility-gated at parse."""
-    from hsrans_tpu.ops.tpx import tpx_encode_adaptive
+    from hsrans.ops.tpx import tpx_encode_adaptive
 
     rng = np.random.default_rng(61)
     blob = tpx_encode_adaptive(_data(), 12)
@@ -183,34 +183,16 @@ def test_tpx_v3_truncations_and_bitflips_safe():
             assert out is None or isinstance(out, bytes)
 
 
-def test_mt32_quad_payload_bitflips_safe():
-    """Corrupted n=32 blobs through the quad kernel path: None or bytes,
-    never a crash/OOB (matches the reference's defensive decode)."""
-    from hsrans_tpu.kernels.mt64_decode import mt64_decode_tpu
-    from hsrans_tpu.ops.mt import mt_encode
-    from hsrans_tpu.parallel.sharded import uniform_plan
+@pytest.mark.parametrize("n", (32, 64))
+def test_mt_device_payload_bitflips_safe(n):
+    """Byte corruptions anywhere in an n-lane blob through the device decode
+    (kernel in interpret mode): None or bytes, never an exception."""
+    from hsrans.parallel.sharded import mt_decode_device, uniform_plan
 
-    rng = np.random.default_rng(67)
-    data = _data()
-    blob = mt_encode(data, 12, 32, plan=uniform_plan(data, 12, 32, 4096))
-    assert mt64_decode_tpu(blob, 12, interpret=True, n=32) == data.tobytes()
-    for b in _payload_flips(blob, rng, n_flips=40):
-        try:
-            out = mt64_decode_tpu(b, 12, interpret=True, n=32)
-        except Exception as e:  # noqa: BLE001 — the contract is None-or-bytes
-            raise AssertionError(f"quad decode raised on corrupt blob: {e}")
+    rng = np.random.default_rng(67 + n)
+    data = _data()[:12_000]
+    blob = mt_encode(data, 12, n, plan=uniform_plan(data, 12, n, 4096))
+    assert mt_decode_device(blob, 12, n) == data.tobytes()
+    for b in _payload_flips(blob, rng, n_flips=12):
+        out = mt_decode_device(b, 12, n)
         assert out is None or isinstance(out, bytes)
-
-
-def test_tpx_kernel_rejects_misaligned_rows():
-    """Crafted headers with rows not a sublane multiple must return None
-    from the kernel tier (host tier still decodes real blobs), never raise
-    a compiler error."""
-    from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu
-    from hsrans_tpu.ops.tpx import tpx_encode_adaptive
-
-    blob = bytearray(tpx_encode_adaptive(_data(), 12))
-    # stomp the first mega's rows field (offset 44) to 13
-    blob[44:48] = (13).to_bytes(4, "little")
-    out = tpx_decode_tpu(bytes(blob), interpret=True)
-    assert out is None or isinstance(out, bytes)

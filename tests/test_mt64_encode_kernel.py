@@ -1,12 +1,11 @@
-"""mt64 Pallas encoder: valid reference-format blobs, equal to the scan path."""
+"""mt device encode (ops/raw_jax.encode_section batched over blocks): valid
+reference-format blobs that the host oracle and the device decode read back."""
 
 import numpy as np
 import pytest
 
-from hsrans_tpu.kernels.mt64_decode import mt64_decode_tpu
-from hsrans_tpu.kernels.mt64_encode import mt64_encode_tpu
-from hsrans_tpu.ops.mt import mt_decode
-from hsrans_tpu.parallel.sharded import mt_encode_device, uniform_plan
+from hsrans.ops.mt import mt_decode
+from hsrans.parallel.sharded import mt_decode_device, mt_encode_device, uniform_plan
 
 
 @pytest.mark.parametrize(
@@ -24,60 +23,49 @@ def test_mt64_encode_kernel(name, size, block):
 
     rng = np.random.default_rng(13)
     data = text_like(rng, size) if size else np.zeros(0, np.uint8)
-    blob = mt64_encode_tpu(data, 12, block_size=block, interpret=True)
-    # decodes through the oracle AND the Pallas decoder
+    blob = mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, block))
+    # decodes through the oracle AND the device decoder
     assert mt_decode(blob, 12, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
-    # and is byte-identical to the scan-based device encoder on the same plan
-    ref = mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, block))
-    assert blob == ref
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_encode_kernel_rle():
     data = np.concatenate([np.full(60_000, 7, np.uint8), np.arange(5000, dtype=np.int64).astype(np.uint8)])
-    blob = mt64_encode_tpu(data, 12, block_size=4096, interpret=True)
+    blob = mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, 4096))
     assert mt_decode(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_encode_kernel_many_blocks():
-    """>128 kernel blocks with nb_pad not a multiple of the concat VMEM cap:
-    regression for the concat-grid truncation bug (rows beyond rc*[grid]
-    silently got empty word streams)."""
+    """Many blocks, the last one carrying an unaligned tail."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(31)
     data = text_like(rng, 136 * 4096 + 100)  # 136 kernel blocks at 4 KiB
-    blob = mt64_encode_tpu(data, 12, block_size=4096, interpret=True)
+    blob = mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, 4096))
     assert mt_decode(blob, 12, 64) == data.tobytes()
-    assert blob == mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, 4096))
-
-
-def test_mt64_encode_rejects_bad_block_size():
-    for bad in (1000, 12288, 768):  # unaligned / not 8K-multiples above 8K
-        with pytest.raises(ValueError):
-            mt64_encode_tpu(np.zeros(10, np.uint8), 12, block_size=bad)
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_encode_planner_plan():
-    """Greedy-planner plans (the reference's variable 2^16+ block sizes)
-    encode on the kernel path via per-size buckets; fresh-state blocks stay
-    valid mt wire and roundtrip through oracle and Pallas decoders."""
+    """Greedy-planner plans (the reference's variable 2^16+ block sizes):
+    fresh-state blocks stay valid mt wire and roundtrip through the oracle
+    and device decoders."""
     from pathlib import Path
 
-    from hsrans_tpu.ops.planner import plan_blocks
+    from hsrans.ops.planner import plan_blocks
 
     corpus = Path(__file__).parent / "corpus" / "corpus.bin"
     data = np.fromfile(corpus, np.uint8)[: 512 * 1024]
     plan = plan_blocks(data, 12, "mt", 64)
     assert len({r.size for r in plan}) >= 1 and max(r.size for r in plan) >= 1 << 16
-    blob = mt64_encode_tpu(data, 12, interpret=True, plan=plan)
+    blob = mt_encode_device(data, 12, 64, plan=plan)
     assert mt_decode(blob, 12, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_encode_plan_with_rle_rows():
-    """Plans with single-symbol rows: RLE indicators between kernel buckets."""
-    from hsrans_tpu.ops.planner import BlockPlan
+    """Plans with single-symbol rows: RLE indicators between coded blocks."""
+    from hsrans.ops.planner import BlockPlan
 
     rng = np.random.default_rng(41)
     from tools.gen_inputs import text_like
@@ -88,29 +76,28 @@ def test_mt64_encode_plan_with_rle_rows():
         BlockPlan(8192, 4096, True, 7, None),
         BlockPlan(12288, 9000, False, 0, None),
     ]
-    blob = mt64_encode_tpu(data, 12, interpret=True, plan=plan)
+    blob = mt_encode_device(data, 12, 64, plan=plan)
     assert mt_decode(blob, 12, 64) == data.tobytes()
 
 
 @pytest.mark.parametrize("block", (16384, 32768))
 def test_mt64_encode_segmented_large_blocks(block):
-    """Blocks above 128 steps run as chained kernel segments (LIFO order)."""
+    """Large blocks: 256 and 512 lane-group steps per block."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(22)
     data = text_like(rng, 150_000)
-    blob = mt64_encode_tpu(data, 12, block_size=block, interpret=True)
+    blob = mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, block))
     assert mt_decode(blob, 12, 64) == data.tobytes()
-    assert blob == mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, block))
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (13, 15))
 def test_mt64_encode_kernel_high_bits(bits):
-    """B>12 device encode: the separate shift tables (l_lo/l_hi) engage."""
+    """B>12 device encode."""
     from pathlib import Path
 
     data = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)[:150_000]
-    blob = mt64_encode_tpu(data, bits, block_size=4096, interpret=True)
+    blob = mt_encode_device(data, bits, 64, plan=uniform_plan(data, bits, 64, 4096))
     assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, bits, 64) == data.tobytes()

@@ -1,4 +1,5 @@
-"""mt64 Pallas decoder: reference-wire-format blocks as kernel rows."""
+"""mt device decode (the Pallas kernel, in interpret mode here) on
+reference-wire-format blobs, against the host oracle."""
 
 import shutil
 import subprocess
@@ -7,9 +8,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from hsrans_tpu.kernels.mt64_decode import mt64_decode_tpu
-from hsrans_tpu.ops.mt import mt_decode, mt_encode
-from hsrans_tpu.parallel.sharded import uniform_plan
+from hsrans.ops.mt import mt_decode, mt_encode
+from hsrans.parallel.sharded import mt_decode_device, uniform_plan
 
 
 def _blob(data, block, bits=12):
@@ -32,12 +32,12 @@ def test_mt64_kernel_matches_oracle(name, size, block):
     data = text_like(rng, size)
     blob = _blob(data, block)
     assert mt_decode(blob, 12, 64) == data.tobytes()
-    got = mt64_decode_tpu(blob, 12, interpret=True)
+    got = mt_decode_device(blob, 12, 64)
     assert got == data.tobytes()
 
 
 def test_mt64_kernel_rle_single_blocks():
-    """Single-symbol blocks interleave with coded blocks (host memset path)."""
+    """Single-symbol blocks interleave with coded blocks (filled on the device)."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(10)
@@ -45,18 +45,18 @@ def test_mt64_kernel_rle_single_blocks():
         [np.full(100_000, 9, np.uint8), text_like(rng, 60_000), np.full(70_000, 3, np.uint8)]
     )
     blob = _blob(data, 8192)
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_kernel_planner_blob():
     """Greedy-planner blobs (the reference's own variable 2^16+ block sizes)
-    decode on the kernel path via per-size buckets."""
+    decode in one launch, rows sorted by step count."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(11)
     data = text_like(rng, 400_000)
     blob = mt_encode(data, 12, 64)  # reference greedy planner
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 def test_mt64_kernel_planner_blob_corpus():
@@ -66,19 +66,19 @@ def test_mt64_kernel_planner_blob_corpus():
     corpus = Path(__file__).parent / "corpus" / "corpus.bin"
     data = np.fromfile(corpus, np.uint8)[: 512 * 1024]
     blob = mt_encode(data, 12, 64)
-    assert mt64_decode_tpu(blob, 12, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (13, 15))
 def test_mt64_kernel_high_bits(bits):
-    """B=13..15: chunked per-row bucket tables + t1/t2 rank tables."""
+    """B=13..15: the symbol moves to its own table (two loads per step)."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(17)
     data = text_like(rng, 150_000)
     blob = _blob(data, 4096, bits=bits)
     assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
+    assert mt_decode_device(blob, bits, 64) == data.tobytes()
 
 
 @pytest.fixture(scope="session")
@@ -135,9 +135,9 @@ def test_reference_binary_decodes_our_device_plan_blob(ref_mt_drive, tmp_path):
     """Wire interop for device_plan segmentation (greedy plan with coded
     blocks split at the device cap): mixed single-symbol RLE rows + capped
     coded rows must decode byte-exactly through the unmodified reference."""
-    from hsrans_tpu.ops.mt import mt_encode
-    from hsrans_tpu.parallel.sharded import device_plan
-    from hsrans_tpu.runtime.native import fnv1a
+    from hsrans.ops.mt import mt_encode
+    from hsrans.parallel.sharded import device_plan
+    from hsrans.runtime.native import fnv1a
 
     xr = np.fromfile(Path(__file__).parent / "corpus" / "xray.bin", np.uint8)[: 2 << 20]
     blob = mt_encode(xr, 12, 64, plan=device_plan(xr, 12, 64, 32 << 10))
@@ -153,7 +153,7 @@ def test_reference_binary_decodes_our_device_plan_blob(ref_mt_drive, tmp_path):
 
 def test_reference_binary_decodes_our_uniform_blob(ref_mt_drive, tmp_path):
     """Wire interop: the unmodified C++ reference decodes our blobs."""
-    from hsrans_tpu.runtime.native import fnv1a
+    from hsrans.runtime.native import fnv1a
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(12)
@@ -172,7 +172,7 @@ def test_reference_binary_decodes_our_uniform_blob(ref_mt_drive, tmp_path):
 @pytest.fixture(scope="session")
 def ref_mt32_drive(tmp_path_factory):
     """Compile the unmodified reference mt x32 B13 decoder (interop oracle
-    for the n=32 pair/quad kernel wire)."""
+    for the n=32 wire)."""
     ref = Path("/root/reference/src")
     if not ref.exists() or shutil.which("g++") is None:
         pytest.skip("reference sources or g++ unavailable")
@@ -222,14 +222,14 @@ int main(int argc, char **argv) {
 
 def test_reference_binary_decodes_our_mt32_blob(ref_mt32_drive, tmp_path):
     """Wire interop for the n=32 high-B path: the unmodified C++ reference
-    decodes the same B13 x32 blob our pair kernel decodes."""
-    from hsrans_tpu.runtime.native import fnv1a
+    decodes the same B13 x32 blob the device decode reads."""
+    from hsrans.runtime.native import fnv1a
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(49)
     data = text_like(rng, 300_000)
     blob = mt_encode(data, 13, 32, plan=uniform_plan(data, 13, 32, 4096))
-    assert mt64_decode_tpu(blob, 13, interpret=True, n=32) == data.tobytes()
+    assert mt_decode_device(blob, 13, 32) == data.tobytes()
     p = tmp_path / "b32.blob"
     p.write_bytes(blob)
     r = subprocess.run(
@@ -254,137 +254,31 @@ def test_mt64_kernel_sharded_mesh():
     rng = np.random.default_rng(15)
     data = text_like(rng, 600_000)
     blob = _blob(data, 4096)
-    assert mt64_decode_tpu(blob, 12, interpret=True, mesh=mesh) == data.tobytes()
+    assert mt_decode_device(blob, 12, 64, mesh=mesh) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (10, 11))
 def test_mt64_kernel_low_bits(bits):
-    """B<12: rank buckets underfill the 128-lane table row."""
+    """B<12: smaller slot tables."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(16)
     data = text_like(rng, 150_000)
     blob = _blob(data, 4096, bits=bits)
     assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (10, 11, 12))
-def test_mt64_kernel_rank64_small_alphabet(bits):
-    """<= 64 distinct symbols per block engages the merged rank-table
-    layout (rank64) at any depth <= 12: one gather serves both paired
-    blocks' rank tables (build_pair_arrays packs B into lanes 64..); at
-    bits <= 11 the c0/bm tables merge too."""
-    from hsrans_tpu.kernels.mt64_decode import (
-        block_index,
-        block_word_counts,
-        build_pair_arrays,
-    )
-
-    rng = np.random.default_rng(23)
-    # 48-symbol zipf alphabet -> every block has <= 64 nonzero freqs
-    ranks = rng.zipf(1.3, 150_000)
-    data = ((ranks - 1) % 48).astype(np.uint8) * 5
-    blob = _blob(data, 4096, bits=bits)
-    _, stream, blocks = block_index(blob, 64)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    assert len(coded) >= 2
-    wc = block_word_counts(blocks, coded, stream)
-    nbp = len(coded) // 2 * 2
-    built = build_pair_arrays(coded[:nbp], wc[:nbp], stream, bits, 1)
-    assert built is not None and built[1]["rank64"], "rank64 layout should engage"
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (14, 15))
-def test_mt32_pair_hb(bits):
-    """n=32 at B>=13 rides the flat-rank pair kernel (one x32 block per
-    64-lane half — 2x the masked single path's occupancy)."""
-    from tools.gen_inputs import text_like
-
-    rng = np.random.default_rng(43)
-    data = text_like(rng, 250_000)
-    blob = mt_encode(data, bits, 32, plan=uniform_plan(data, bits, 32, 4096))
-    assert mt_decode(blob, bits, 32) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True, n=32) == data.tobytes()
-
-
-def test_mt32_pair_hb_sharded():
-    import jax
-    from jax.sharding import Mesh
-
-    from tools.gen_inputs import text_like
-
-    devs = jax.devices()
-    if len(devs) < 2:
-        pytest.skip("needs the virtual multi-device CPU mesh")
-    mesh = Mesh(np.array(devs).reshape(len(devs)), ("dp",))
-    rng = np.random.default_rng(47)
-    data = text_like(rng, 400_000)
-    blob = mt_encode(data, 14, 32, plan=uniform_plan(data, 14, 32, 4096))
-    assert mt64_decode_tpu(blob, 14, interpret=True, n=32, mesh=mesh) == data.tobytes()
+    assert mt_decode_device(blob, bits, 64) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (12, 13))
 def test_mt_kernel_n32(bits):
-    """n=32 blobs on the same kernel: 16 steps x 32 lanes per grid step."""
+    """n=32 blobs on the same kernel."""
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(19)
     data = text_like(rng, 200_000)
     blob = mt_encode(data, bits, 32, plan=uniform_plan(data, bits, 32, 4096))
     assert mt_decode(blob, bits, 32) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True, n=32) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (10, 11, 12))
-def test_mt32_quad_roundtrip(bits):
-    """Quad-packed n=32 path: four blocks per 128-lane row (full alphabet
-    -> rank_mode 256, per-quarter two-operand gathers)."""
-    from tools.gen_inputs import text_like
-
-    rng = np.random.default_rng(31)
-    data = text_like(rng, 300_000)
-    blob = mt_encode(data, bits, 32, plan=uniform_plan(data, bits, 32, 4096))
-    assert mt_decode(blob, bits, 32) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True, n=32) == data.tobytes()
-
-
-@pytest.mark.parametrize("alphabet,mode", ((20, 32), (50, 64), (100, 128)))
-def test_mt32_quad_rank_modes(alphabet, mode):
-    """Small alphabets merge quarters' rank tables into fewer operands."""
-    from hsrans_tpu.kernels.mt32_quad import build_quad_arrays
-    from hsrans_tpu.kernels.mt64_decode import block_index, block_word_counts
-
-    bits = 11
-    rng = np.random.default_rng(37)
-    ranks = rng.zipf(1.4, 200_000)
-    data = ((ranks - 1) % alphabet).astype(np.uint8) * 2
-    blob = mt_encode(data, bits, 32, plan=uniform_plan(data, bits, 32, 4096))
-    _, stream, blocks = block_index(blob, 32)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    wc = block_word_counts(blocks, coded, stream, 32)
-    nbq = len(coded) // 4 * 4
-    assert nbq >= 4
-    built = build_quad_arrays(coded[:nbq], wc[:nbq], stream, bits)
-    assert built is not None and built[1]["rank_mode"] == mode
-    assert mt64_decode_tpu(blob, bits, interpret=True, n=32) == data.tobytes()
-
-
-def test_mt32_quad_sharded_mesh():
-    import jax
-    from jax.sharding import Mesh
-
-    from tools.gen_inputs import text_like
-
-    devs = jax.devices()
-    if len(devs) < 2:
-        pytest.skip("needs the virtual multi-device CPU mesh")
-    mesh = Mesh(np.array(devs).reshape(len(devs)), ("dp",))
-    rng = np.random.default_rng(41)
-    data = text_like(rng, 500_000)
-    blob = mt_encode(data, 12, 32, plan=uniform_plan(data, 12, 32, 4096))
-    assert mt64_decode_tpu(blob, 12, interpret=True, n=32, mesh=mesh) == data.tobytes()
+    assert mt_decode_device(blob, bits, 32) == data.tobytes()
 
 
 def test_mt_kernel_n32_planner():
@@ -392,13 +286,12 @@ def test_mt_kernel_n32_planner():
 
     data = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)[: 256 * 1024]
     blob = mt_encode(data, 12, 32)  # greedy planner (mt32 constants)
-    assert mt64_decode_tpu(blob, 12, interpret=True, n=32) == data.tobytes()
+    assert mt_decode_device(blob, 12, 32) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (13, 15))
 def test_mt64_kernel_sharded_mesh_high_bits(bits):
-    """B>=13 pairs shard over the mesh too (flat-rank hb kernel inside
-    shard_map; previously gated to host-order execution)."""
+    """B>=13 (two table loads per step) sharded over the mesh."""
     import jax
     from jax.sharding import Mesh
 
@@ -411,12 +304,12 @@ def test_mt64_kernel_sharded_mesh_high_bits(bits):
     rng = np.random.default_rng(27)
     data = text_like(rng, 400_000)
     blob = _blob(data, 4096, bits=bits)
-    assert mt64_decode_tpu(blob, bits, interpret=True, mesh=mesh) == data.tobytes()
+    assert mt_decode_device(blob, bits, 64, mesh=mesh) == data.tobytes()
 
 
 def test_mt64_kernel_planner_blob_sharded():
-    """Variable-size buckets shard over the mesh too (each bucket's rows
-    split across devices; in-order gather at the shard_map boundary)."""
+    """Variable-size blocks shard over the mesh too (rows dealt out tile by
+    tile; the devices' byte spans merge with a psum)."""
     import jax
     from jax.sharding import Mesh
 
@@ -426,178 +319,4 @@ def test_mt64_kernel_planner_blob_sharded():
     mesh = Mesh(np.array(devs).reshape(len(devs)), ("dp",))
     data = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)[: 512 * 1024]
     blob = mt_encode(data, 12, 64)  # greedy planner
-    assert mt64_decode_tpu(blob, 12, interpret=True, mesh=mesh) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (14, 15))
-def test_mt64_pair_hb_sym_lin(bits):
-    """Contiguous present alphabet (symbols 17..46) engages the sym_lin
-    fast path of the hb pair kernel (sym = rank + broadcast first_sym, no
-    sp4 gather) — and still roundtrips (ADVICE r4: branch was untested)."""
-    from hsrans_tpu.kernels.mt64_decode import (
-        block_index,
-        block_word_counts,
-        build_pair_arrays_hb,
-    )
-
-    rng = np.random.default_rng(53)
-    data = rng.integers(17, 47, 200_000).astype(np.uint8)
-    blob = _blob(data, 4096, bits=bits)
-    _, stream, blocks = block_index(blob, 64)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    wc = block_word_counts(blocks, coded, stream)
-    nbp = len(coded) // 2 * 2
-    built = build_pair_arrays_hb(coded[:nbp], wc[:nbp], stream, bits)
-    assert built is not None and built[1]["sym_lin"], "sym_lin should engage"
-    assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (14, 15))
-def test_mt64_pair_hb_packed128_dense(bits):
-    """Dense 256-symbol blocks (x-ray-like) at B>=14 take the 128-slot-
-    group packed layout (gbits=7, pnc halved); starts at in-group position
-    127 are real there, which is why positions store p-1 under a strict->
-    compare (sentinel 127 stays unambiguous)."""
-    from hsrans_tpu.kernels.mt64_decode import (
-        block_index,
-        block_word_counts,
-        build_pair_arrays_hb,
-    )
-
-    rng = np.random.default_rng(59)
-    # skewed dense alphabet: every byte value present, zipf-weighted freqs
-    ranks = rng.zipf(1.1, 300_000)
-    data = ((ranks - 1) % 256).astype(np.uint8)
-    blob = _blob(data, 8192, bits=bits)
-    _, stream, blocks = block_index(blob, 64)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    wc = block_word_counts(blocks, coded, stream)
-    nbp = len(coded) // 2 * 2
-    built = build_pair_arrays_hb(coded[:nbp], wc[:nbp], stream, bits)
-    assert built is not None
-    if built[1]["packed"] and bits == 15:
-        # at B15 starts spread ~128 slots apart: the 128-group gate holds
-        # (B14 may legitimately fall back to 64-groups on skewed data)
-        assert built[1]["gbits"] == 7, "128-slot groups should engage at B=15"
-    assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (10, 12, 13, 15))
-def test_mt64_kernel_device_plan_same_tab(bits, monkeypatch):
-    """device_plan splits one oversized coded block into sub-blocks that all
-    carry the parent's histogram; _order_same_hist pairs those siblings so
-    the pair builders detect same_tab (the kernel then reads only A-side
-    tables).  Assert the flag actually engages AND the decode is exact."""
-    from hsrans_tpu.kernels import mt64_decode as m
-    from hsrans_tpu.parallel.sharded import device_plan
-
-    rng = np.random.default_rng(23)
-    # homogeneous dense data: the greedy plan coalesces it into few parents,
-    # so the 16 KiB device cap produces many same-hist siblings per bucket
-    data = rng.normal(128, 30, 200_000).clip(0, 255).astype(np.uint8)
-    blob = mt_encode(data, bits, 64, plan=device_plan(data, bits, 64, 16 << 10))
-    name = "build_pair_arrays" if bits <= 12 else "build_pair_arrays_hb"
-    orig = getattr(m, name)
-    seen = []
-
-    def spy(*a, **k):
-        built = orig(*a, **k)
-        if built is not None:
-            seen.append(built[1]["same_tab"])
-        return built
-
-    monkeypatch.setattr(m, name, spy)
-    assert m.mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-    assert any(seen), "no same_tab pair bucket engaged on a device_plan blob"
-
-
-def test_mt64_pair_hb_packed32_dense_b13():
-    """Dense 256-symbol alphabets at B=13 fail the 64-slot gate (~2 starts
-    per group average puts some group above 3) but pass 32-slot groups:
-    the gbits=5 cascade step (pnc=2) must engage and roundtrip — the bm
-    fallback costs one more gather per step (KERNEL_NOTES gather rule)."""
-    from hsrans_tpu.kernels.mt64_decode import (
-        block_index,
-        block_word_counts,
-        build_pair_arrays_hb,
-    )
-
-    rng = np.random.default_rng(61)
-    ranks = rng.zipf(1.1, 300_000)
-    data = ((ranks - 1) % 256).astype(np.uint8)
-    blob = _blob(data, 8192, bits=13)
-    _, stream, blocks = block_index(blob, 64)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    wc = block_word_counts(blocks, coded, stream)
-    nbp = len(coded) // 2 * 2
-    built = build_pair_arrays_hb(coded[:nbp], wc[:nbp], stream, 13)
-    assert built is not None
-    assert built[1]["packed"], "32-slot packed groups should engage at B=13"
-    assert built[1]["gbits"] == 5
-    assert mt_decode(blob, 13, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, 13, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (10, 11))
-def test_mt64_pair_cb16_packed_rank_buckets(bits):
-    """The packed 16-slot c0bm table (bm u16 | c0 << 16, one gather where
-    c0/bm cost two) must engage at B=10 for any pairing and at B=11 for
-    same-hist pairs, and decode bit-exactly on both the mixed and the
-    same_tab path."""
-    from hsrans_tpu.kernels.mt64_decode import (
-        block_index,
-        block_word_counts,
-        build_pair_arrays,
-    )
-
-    rng = np.random.default_rng(77)
-    ranks = rng.zipf(1.1, 200_000)
-    data = ((ranks - 1) % 200).astype(np.uint8)  # dense-ish alphabet
-    blob = _blob(data, 4096, bits=bits)
-    _, stream, blocks = block_index(blob, 64)
-    coded = [b for b in blocks if not b.is_single][:-1]
-    wc = block_word_counts(blocks, coded, stream)
-    nbp = len(coded) // 2 * 2
-    built = build_pair_arrays(coded[:nbp], wc[:nbp], stream, bits)
-    assert built is not None
-    if bits == 10:
-        assert built[1]["cb16"], "cb16 must engage at B=10"
-    else:
-        # mixed-hist pairs at B=11 keep the merged c0/bm layout
-        assert built[1]["cb16"] == built[1]["same_tab"]
-    assert mt_decode(blob, bits, 64) == data.tobytes()
-    assert mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-
-
-def test_mt64_pair_cb16_same_tab_device_plan(bits=11):
-    """device_plan same-hist siblings at B=11 engage cb16 + same_tab
-    together (128-entry packed table fills the whole A row)."""
-    import hsrans_tpu.kernels.mt64_decode as m
-    from hsrans_tpu.ops.mt import mt_encode
-    from hsrans_tpu.parallel.sharded import device_plan
-
-    rng = np.random.default_rng(78)
-    ranks = rng.zipf(1.2, 400_000)
-    data = ((ranks - 1) % 128).astype(np.uint8) * 2
-    blob = mt_encode(data, bits, 64, plan=device_plan(data, bits, 64, 16 << 10))
-
-    seen = []
-    orig = m.build_pair_arrays
-
-    def spy(*a, **k):
-        built = orig(*a, **k)
-        if built is not None:
-            seen.append((built[1]["same_tab"], built[1]["cb16"]))
-        return built
-
-    import pytest as _pytest
-
-    mp = _pytest.MonkeyPatch()
-    try:
-        mp.setattr(m, "build_pair_arrays", spy)
-        assert m.mt64_decode_tpu(blob, bits, interpret=True) == data.tobytes()
-    finally:
-        mp.undo()
-    assert any(st and cb for st, cb in seen), "same_tab+cb16 never engaged"
+    assert mt_decode_device(blob, 12, 64, mesh=mesh) == data.tobytes()

@@ -12,9 +12,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import make_hist
-from hsrans_tpu.ops import block, mt, reference
-from hsrans_tpu.runtime import native
+from hsrans.models.histogram import make_hist
+from hsrans.ops import block, mt, reference
+from hsrans.runtime import native
 
 CORPUS = Path(__file__).parent / "corpus" / "corpus.bin"
 
@@ -89,7 +89,7 @@ def test_public_ops_dispatch_native():
 @pytest.mark.parametrize("bits", (10, 12, 15))
 def test_blk32_native_matches_numpy(wb, bits):
     _native_or_skip()
-    from hsrans_tpu.ops import blk32
+    from hsrans.ops import blk32
 
     for size in (0, 31, 70001):
         d = _data(size, off=1 << 20)
@@ -139,7 +139,7 @@ def test_native_mt_unaligned_block_sizes():
     (the later block overwrites), so the concurrent native path must clamp
     every worker to its own output range — an overshoot would clobber a
     following RLE block (threads=1) or race a coded one (advisor r2, high)."""
-    from hsrans_tpu.ops.planner import BlockPlan
+    from hsrans.ops.planner import BlockPlan
 
     _native_or_skip()
     rng = np.random.default_rng(7)
@@ -162,7 +162,7 @@ def test_native_mt_unaligned_many_blocks_threaded():
     """Many adjacent unaligned coded blocks decoded by the thread pool: any
     cross-block overshoot races a neighbor's writes (flaky corruption in the
     pre-fix build ~50% of runs)."""
-    from hsrans_tpu.ops.planner import BlockPlan
+    from hsrans.ops.planner import BlockPlan
 
     _native_or_skip()
     rng = np.random.default_rng(11)
@@ -218,7 +218,7 @@ def test_native_high_bits_pack_boundary(bits):
         ):
             blob = fam_enc(data, bits, 64)
             assert fam_dec(blob, bits, 64) == data.tobytes()
-        from hsrans_tpu.ops import blk32
+        from hsrans.ops import blk32
 
         for wb in (16, 8):
             bb = blk32.blk32_encode_host(data, bits, wb)

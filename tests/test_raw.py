@@ -4,8 +4,8 @@ plus roundtrip properties the reference can't test (tiny inputs)."""
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import make_hist, normalize_hist
-from hsrans_tpu.ops.reference import raw_capacity, raw_decode_16w, raw_encode_16w
+from hsrans.models.histogram import make_hist, normalize_hist
+from hsrans.ops.reference import raw_capacity, raw_decode_16w, raw_encode_16w
 
 from .conftest import fnv1a, read_meta
 

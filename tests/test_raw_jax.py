@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import make_hist
-from hsrans_tpu.ops.raw_jax import raw_decode_jax, raw_encode_jax
-from hsrans_tpu.ops.reference import raw_encode_16w
+from hsrans.models.histogram import make_hist
+from hsrans.ops.raw_jax import raw_decode_jax, raw_encode_jax
+from hsrans.ops.reference import raw_encode_16w
 
 from .conftest import fnv1a, read_meta
 

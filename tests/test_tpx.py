@@ -1,12 +1,12 @@
-"""tpx tile-parallel format: numpy roundtrip + Pallas kernel (interpret)."""
+"""tpx tile-parallel format: the host codec (numpy and native)."""
 
 import numpy as np
 import pytest
 
-from hsrans_tpu.models.histogram import make_hist
-from hsrans_tpu.ops.tpx import TpxParams, make_rank_tables, tpx_decode, tpx_encode
-from hsrans_tpu.models.tables import make_cumul_inv
-from hsrans_tpu.ops.tpx import _popcount
+from hsrans.models.histogram import make_hist
+from hsrans.ops.tpx import TpxParams, make_rank_tables, tpx_decode, tpx_encode
+from hsrans.models.tables import make_cumul_inv
+from hsrans.ops.tpx import _popcount
 
 
 def _cases(rng):
@@ -54,33 +54,6 @@ def test_rank_tables_exact(bits):
         assert np.array_equal(t2[rank], hist.cumul[inv].astype(np.uint32))
 
 
-def test_tpx_kernel_interpret():
-    """Pallas kernel (interpret mode, CPU) matches the numpy decoder."""
-    from tools.gen_inputs import text_like
-
-    from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu
-
-    rng = np.random.default_rng(6)
-    data = text_like(rng, 900_000)
-    blob = tpx_encode(data, 12)
-    assert tpx_decode_tpu(blob, interpret=True) == data.tobytes()
-
-
-@pytest.mark.parametrize("bits", (13, 15))
-def test_tpx_kernel_interpret_high_bits(bits):
-    """B>=13 path: bucket tables span multiple sublane chunks."""
-    from tools.gen_inputs import text_like
-
-    from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu
-
-    rng = np.random.default_rng(7)
-    p = TpxParams(bits=bits, rows=8, lanes=128, steps=8, tiles=2)
-    data = text_like(rng, 30_000)
-    blob = tpx_encode(data, p=p)
-    assert tpx_decode_tpu(blob, interpret=True) == data.tobytes()
-    assert tpx_decode(blob, use_rank_tables=True) == data.tobytes()
-
-
 def test_tpx_header_rejects_garbage():
     assert tpx_decode(b"NOTTPX00" + b"\0" * 64) is None
     assert tpx_decode(b"") is None
@@ -93,8 +66,8 @@ def test_tpx_ratio_parity_on_real_corpus():
     pathology (rectangular padding -> ratio 1.75) must never return."""
     from pathlib import Path
 
-    from hsrans_tpu.ops.block import block_encode
-    from hsrans_tpu.ops.tpx import tpx_decode, tpx_encode
+    from hsrans.ops.block import block_encode
+    from hsrans.ops.tpx import tpx_decode, tpx_encode
 
     data = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)
     blob_block = block_encode(data, 12, 64)
@@ -109,7 +82,7 @@ def test_tpx_ratio_parity_on_real_corpus():
 def test_tpx_auto_geometry_small_inputs():
     """Small inputs get shrunk row counts: blobs stay near-entropy-sized
     instead of paying a fixed 16 MiB megablock's headers."""
-    from hsrans_tpu.ops.tpx import TpxParams, tpx_decode, tpx_encode
+    from hsrans.ops.tpx import TpxParams, tpx_decode, tpx_encode
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(77)
@@ -128,8 +101,7 @@ def test_tpx_adaptive_v3_roundtrip_and_ratio():
     ratio win at 4x the ratio goal's chain count (128 rows vs 32)."""
     from pathlib import Path
 
-    from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu
-    from hsrans_tpu.ops.tpx import tpx_decode, tpx_encode_adaptive, tpx_parse
+    from hsrans.ops.tpx import tpx_decode, tpx_encode_adaptive, tpx_parse
 
     data = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)
     blob = tpx_encode_adaptive(data, 12)
@@ -139,14 +111,12 @@ def test_tpx_adaptive_v3_roundtrip_and_ratio():
     assert length == data.size
     assert all(m.rows >= 128 for m in megas), [m.rows for m in megas]
     assert tpx_decode(blob) == data.tobytes()
-    assert tpx_decode_tpu(blob, interpret=True) == data.tobytes()
 
 
 def test_tpx_adaptive_v3_mixed_geometries():
     """Homogeneous + heterogeneous regions produce distinct per-mega
-    geometries in one blob; every decode tier agrees."""
-    from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu
-    from hsrans_tpu.ops.tpx import tpx_decode, tpx_encode_adaptive, tpx_parse
+    geometries in one blob, and it decodes."""
+    from hsrans.ops.tpx import tpx_decode, tpx_encode_adaptive, tpx_parse
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(53)
@@ -159,24 +129,3 @@ def test_tpx_adaptive_v3_mixed_geometries():
     geoms = {(m.rows, m.steps) for m in megas}
     assert len(geoms) >= 2, geoms  # speed geometry + hist-local geometry
     assert tpx_decode(blob) == data.tobytes()
-    assert tpx_decode_tpu(blob, interpret=True) == data.tobytes()
-
-
-def test_tpx_adaptive_v3_sharded():
-    import jax
-    from jax.sharding import Mesh
-
-    from hsrans_tpu.ops.tpx import tpx_encode_adaptive
-    from hsrans_tpu.parallel.tpx_sharded import tpx_decode_device
-    from tools.gen_inputs import text_like
-
-    devs = jax.devices()
-    if len(devs) < 2:
-        import pytest
-
-        pytest.skip("needs the virtual multi-device CPU mesh")
-    mesh = Mesh(np.array(devs).reshape(len(devs)), ("dp",))
-    rng = np.random.default_rng(59)
-    data = text_like(rng, 2 << 20)
-    blob = tpx_encode_adaptive(data, 12)
-    assert tpx_decode_device(blob, mesh=mesh, interpret=True) == data.tobytes()

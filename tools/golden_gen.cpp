@@ -3,7 +3,7 @@
 // deterministic inputs:
 //   - normalized histograms  (<case>.hist_<B>)          raw 256*u16 freqs
 //   - encoded blobs or their sizes+SHA-like FNV hashes  (<case>.<codec>_<B>[.bin|.meta])
-// so the TPU framework's encoders/decoders can be checked for bit-exact
+// so this framework's encoders/decoders can be checked for bit-exact
 // wire-format parity without shipping reference code in this repo.
 //
 // Build (see tools/gen_golden.sh):

@@ -1,5 +1,6 @@
 """Differential soak: random inputs through every family x depth x width,
-cross-checking the numpy oracle, native C++, and kernel-interpret tiers.
+cross-checking the numpy oracle, native C++, and the mt device paths (the
+decode kernel in interpret mode, the XLA encode) on the CPU.
 
 This is the checked-in version of the harness that found the n=16 mt/block
 dispatch bug in round 4 (commit 17d1cc8).  The reference has no fuzz layer;
@@ -29,18 +30,17 @@ jax.config.update("jax_platforms", "cpu")
 
 from tools.gen_inputs import text_like  # noqa: E402
 
-from hsrans_tpu.kernels.mt64_decode import mt64_decode_tpu  # noqa: E402
-from hsrans_tpu.kernels.tpx_decode import tpx_decode_tpu  # noqa: E402
-from hsrans_tpu.ops.blk32 import blk32_decode_host, blk32_encode_host  # noqa: E402
-from hsrans_tpu.ops.block import (  # noqa: E402
+from hsrans.ops.blk32 import blk32_decode_host, blk32_encode_host  # noqa: E402
+from hsrans.ops.block import (  # noqa: E402
     block_decode,
     block_decode_py,
     block_encode,
     block_encode_py,
 )
-from hsrans_tpu.ops.mt import mt_decode, mt_decode_py, mt_encode, mt_encode_py  # noqa: E402
-from hsrans_tpu.ops.reference import raw_decode, raw_encode  # noqa: E402
-from hsrans_tpu.ops.tpx import tpx_decode, tpx_encode, tpx_encode_adaptive  # noqa: E402
+from hsrans.ops.mt import mt_decode, mt_decode_py, mt_encode, mt_encode_py  # noqa: E402
+from hsrans.ops.reference import raw_decode, raw_encode  # noqa: E402
+from hsrans.ops.tpx import tpx_decode, tpx_encode, tpx_encode_adaptive  # noqa: E402
+from hsrans.parallel.sharded import mt_decode_device, mt_encode_device  # noqa: E402
 
 
 def make_input(rng: np.random.Generator, it: int, max_size: int) -> np.ndarray:
@@ -66,15 +66,15 @@ def run_case(rng: np.random.Generator, it: int, max_size: int) -> None:
     # only (the native/kernel tiers run at every size)
     diff_py = data.size <= 384 << 10
 
-    # mt: native-vs-numpy tier diff both ways + interpret kernel
+    # mt: native-vs-numpy tier diff both ways + the device paths
     blob = mt_encode(data, bits, n)
     assert mt_decode(blob, bits, n) == want, "mt host decode"
     if diff_py:
         assert blob == mt_encode_py(data, bits, n), "mt encode tier mismatch"
         assert mt_decode_py(blob, bits, n) == want, "mt numpy decode"
     if n in (32, 64):
-        out = mt64_decode_tpu(blob, bits, interpret=True, n=n)
-        assert out is None or out == want, "mt kernel decode"
+        assert mt_decode_device(blob, bits, n) == want, "mt device decode"
+        assert mt_decode(mt_encode_device(data, bits, n), bits, n) == want, "mt device encode"
 
     # block codec, same tier diff
     bblob = block_encode(data, bits, n)
@@ -93,14 +93,10 @@ def run_case(rng: np.random.Generator, it: int, max_size: int) -> None:
             bb = blk32_encode_host(data, bits, wb)
             assert blk32_decode_host(bb, bits, wb) == want, f"blk32 {wb}w"
 
-    # tpx (own format): v2 fixed geometry + v3 adaptive, numpy + kernel tiers
+    # tpx (own format, host codec): v2 fixed geometry + v3 adaptive
     if bits <= 13 and data.size < 200_000:
-        t = tpx_encode(data, bits)
-        assert tpx_decode(t) == want, "tpx v2"
-        assert tpx_decode_tpu(t, interpret=True) == want, "tpx v2 kernel"
-        ta = tpx_encode_adaptive(data, 12)
-        assert tpx_decode(ta) == want, "tpx v3"
-        assert tpx_decode_tpu(ta, interpret=True) == want, "tpx v3 kernel"
+        assert tpx_decode(tpx_encode(data, bits)) == want, "tpx v2"
+        assert tpx_decode(tpx_encode_adaptive(data, 12)) == want, "tpx v3"
 
 
 def main() -> int:
